@@ -7,13 +7,16 @@ ctypes. Each source exports plain C entry points that take raw device
 pointers and a stream and return `cudaGetLastError()`.
 
 Nothing happens at import time: `lib()` builds at first use, under a
-file lock, and rebuilds only when a source is newer than the library.
-A failed build raises.
+file lock, and rebuilds when the library is stale: older than any
+`csrc/*.cu` or shared `csrc/*.cuh`, or built with other flags than
+`NVCC_FLAGS` (kept in a stamp file beside the library). A failed build
+raises.
 """
 from __future__ import annotations
 
 import ctypes
 import fcntl
+import json
 import os
 import shutil
 import subprocess
@@ -27,12 +30,18 @@ SO = BUILD_DIR / "libbrpc_tpu_torch_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
+STAMP = BUILD_DIR / (SO.name + ".flags")
+PTXAS = BUILD_DIR / "ptxas.txt"  # nvcc's -Xptxas -v lines of the last build
+
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 # C entry point -> argtypes (restype is int, the cudaError_t).
 _ENTRY_POINTS = {
-    "brpc_tpu_torch_adler_frame_checksum": [_P, _P, _I64, _I64, _P],
+    "brpc_tpu_torch_adler_frame_checksum": [
+        _P, _P, _I64, _I64, ctypes.c_int, ctypes.c_int, _I64, _I64, _I64,
+        _P, _I64, _P],
     "brpc_tpu_torch_integrity_word": [_P, _P, _I64, _P],
+    "brpc_tpu_torch_integrity_word_cluster": [],
 }
 
 _LIB = None
@@ -45,19 +54,31 @@ def _nvcc() -> str:
     return nvcc
 
 
+def stale(so: Path, stamp: Path, csrc: Path, flags: list) -> bool:
+    """True when `so` must be rebuilt: it is missing, a source or header
+    in `csrc` is newer, or `stamp` does not hold exactly `flags`."""
+    if not so.exists() or not stamp.exists():
+        return True
+    if stamp.read_text() != json.dumps(flags):
+        return True
+    inputs = list(csrc.glob("*.cu")) + list(csrc.glob("*.cuh"))
+    return any(f.stat().st_mtime > so.stat().st_mtime for f in inputs)
+
+
 def build() -> dict:
     """Compile the kernels if the library is missing or stale. Returns
     {"so", "built", "seconds", "ptxas"}: ptxas holds nvcc's
-    `-Xptxas -v` register, shared-memory and spill lines."""
+    `-Xptxas -v` function, register, shared-memory and spill lines of
+    the build that made the library."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     sources = sorted(CSRC.glob("*.cu"))
     t0 = time.monotonic()
     with open(BUILD_DIR / ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        newest = max(s.stat().st_mtime for s in sources)
-        if SO.exists() and SO.stat().st_mtime >= newest:
+        if not stale(SO, STAMP, CSRC, NVCC_FLAGS):
+            ptxas = PTXAS.read_text().splitlines() if PTXAS.exists() else []
             return {"so": str(SO), "built": False, "seconds": 0.0,
-                    "ptxas": []}
+                    "ptxas": ptxas}
         nvcc = _nvcc()
         procs = []
         for src in sources:
@@ -73,7 +94,8 @@ def build() -> dict:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {src.name}:\n{out}")
             ptxas += [f"{src.name}: {ln.strip()}" for ln in out.splitlines()
-                      if "registers" in ln or "spill" in ln]
+                      if "Compiling entry" in ln or "registers" in ln
+                      or "spill" in ln]
             objs.append(str(BUILD_DIR / (src.stem + ".o")))
         tmp = BUILD_DIR / (SO.name + ".tmp")
         link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *objs],
@@ -81,6 +103,8 @@ def build() -> dict:
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
         os.replace(tmp, SO)
+        STAMP.write_text(json.dumps(NVCC_FLAGS))
+        PTXAS.write_text("\n".join(ptxas))
     return {"so": str(SO), "built": True,
             "seconds": time.monotonic() - t0, "ptxas": ptxas}
 

@@ -4,7 +4,8 @@ and its plain version.
 Replaces brpc_tpu/device_path.py:38-49 (`_integrity_word`).
 `integrity_word` dispatches on the tensor's device: a CPU tensor goes to
 `integrity_word_ref`, a CUDA tensor launches the hand kernel (or
-raises). It counts its kernel launches in `integrity_word.launches`.
+raises) with one kernel launch per call, whatever the input's length or
+alignment. It counts its kernel launches in `integrity_word.launches`.
 """
 from __future__ import annotations
 
@@ -36,7 +37,8 @@ def integrity_word(words: torch.Tensor) -> torch.Tensor:
     if not words.is_contiguous():
         raise ValueError("words must be contiguous")
     with torch.cuda.device(words.device):
-        out = torch.zeros((), dtype=torch.int32, device=words.device)
+        # The kernel writes the word; nothing is zeroed first.
+        out = torch.empty((), dtype=torch.int32, device=words.device)
         _build.launch("brpc_tpu_torch_integrity_word",
                       words.data_ptr(), out.data_ptr(), words.numel(),
                       torch.cuda.current_stream().cuda_stream)

@@ -8,11 +8,18 @@ Phases, each printing one JSON line:
      build tools on PATH;
   2. build: the CUDA kernels (nvcc, sm_90a) and libtpurpc, in parallel,
      from the sources in this checkout, with nvcc's register and spill
-     lines and the libtpurpc build route;
-  3. B1 (adler_frame_checksum) held bit-equal to its plain version;
-  4. B2 (integrity_word) held bit-equal to its plain version;
-  5. kernel and plain-version times at the main path's shapes (CUDA
-     graph replay timed with CUDA events), against the card's bound;
+     lines, each kernel's SASS instruction counts (cuobjdump) and the
+     libtpurpc build route;
+  3. B1 (adler_frame_checksum) held bit-equal to its plain version,
+     also on ragged rows, a misaligned view and few long rows;
+  4. B2 (integrity_word) held bit-equal to its plain version, also on
+     a ragged length and a misaligned view;
+  5. kernel and plain-version times (CUDA graph replay timed with CUDA
+     events, inputs cycled over 128 MiB) at the main path's shapes and
+     a few-long-rows B1 shape, against the card's bound; the launch
+     floor (a one-element zero_() in the same harness) and B2's fixed
+     cost (an empty input); B1 on an input
+     held in L2, beside the same shape read from HBM;
   6. the main path with launch counters set to 0: entry(), echo_step at
      (4096, 1024) and (256, 262144), and the device path over a 256 MiB
      payload (ring depth 4, 1020 KiB chunks); every output is checked;
@@ -24,6 +31,7 @@ Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repo. Any mismatch or exception exits non-zero.
 """
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -68,9 +76,11 @@ def bound(nbytes, ops):
 
 
 def graph_ms(fn, inputs, iters):
-    """Device time of one call: `iters` calls captured in a CUDA graph,
-    cycling over `inputs` (distinct copies, so a small input is not
-    served from L2), replayed and timed with CUDA events."""
+    """Device time of one call: at least `iters` calls, and one on each
+    of `inputs` (distinct copies, so a small input is not served from
+    L2), captured in a CUDA graph, replayed and timed with CUDA
+    events."""
+    iters = max(iters, len(inputs))
     fn(inputs[0])
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
@@ -86,6 +96,30 @@ def graph_ms(fn, inputs, iters):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def sass_counts(obj):
+    """{kernel: {"instructions": n, "ops": {opcode: count}}} from
+    `cuobjdump -sass` of one object file (static counts), or an error."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        text = subprocess.run([tool, "-sass", str(obj)], capture_output=True,
+                              text=True, check=True).stdout
+    except (OSError, subprocess.CalledProcessError) as e:
+        return {"error": str(e)}
+    counts, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = {"instructions": 0, "ops": {}}
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if fn and m and m.group(1) != "NOP":
+            op = m.group(1)
+            counts[fn]["instructions"] += 1
+            counts[fn]["ops"][op] = counts[fn]["ops"].get(op, 0) + 1
+    return counts
 
 
 def copies_for(nbytes):
@@ -128,12 +162,23 @@ def main():
         kinfo, route = kern.result(), rpc.result()
     emit("build", seconds=round(time.monotonic() - t0, 3),
          kernels_so=kinfo["so"], kernels_seconds=round(kinfo["seconds"], 3),
-         ptxas=kinfo["ptxas"], libtpurpc_route=route)
+         ptxas=kinfo["ptxas"], libtpurpc_route=route,
+         b2_cluster_blocks=_build.lib().brpc_tpu_torch_integrity_word_cluster())
+    for obj in sorted(_build.BUILD_DIR.glob("*.o")):
+        emit("sass", object=obj.name, kernels=sass_counts(obj))
 
-    def held(kernel, ref, arr):
-        """Kernel and plain version on the same card tensor; returns
-        (kernel output as uint32 ndarray, max |kernel - plain|)."""
-        x = words_from_numpy(arr, dev)
+    def misaligned(arr):
+        """A contiguous view of `arr` on the card that starts one word
+        into its storage (not 16-byte aligned)."""
+        flat = words_from_numpy(
+            np.concatenate([np.zeros(1, np.uint32), arr.reshape(-1)]), dev)
+        return flat[1:].view(arr.shape)
+
+    def held(kernel, ref, arr, shifted=False):
+        """Kernel and plain version on the same card tensor (a misaligned
+        view if `shifted`); returns (kernel output as uint32 ndarray,
+        max |kernel - plain|)."""
+        x = misaligned(arr) if shifted else words_from_numpy(arr, dev)
         got = words_to_numpy(kernel(x)).astype(np.int64)
         want = words_to_numpy(ref(x)).astype(np.int64)
         torch.cuda.synchronize()
@@ -150,10 +195,24 @@ def main():
                                           dtype=np.uint32),
         "random(256,262144)": rng.integers(0, 2**32, (256, 262144),
                                            dtype=np.uint32),
+        "random(32,262144)": rng.integers(0, 2**32, (32, 262144),
+                                          dtype=np.uint32),
+        "random(3,4097)": rng.integers(0, 2**32, (3, 4097), dtype=np.uint32),
+        "random(5,262147)": rng.integers(0, 2**32, (5, 262147),
+                                         dtype=np.uint32),
+        "random(7,1021)": rng.integers(0, 2**32, (7, 1021), dtype=np.uint32),
     }
+    # Every case as it is, then three as views that start one word into
+    # their storage.
+    b1_runs = [(name, False) for name in b1_cases] + [
+        (name, True) for name in ("random(7,1021)", "random(5,262147)",
+                                  "random(32,262144)")]
     b1_err = 0
-    for name, arr in b1_cases.items():
-        got, err = held(adler_frame_checksum, adler_frame_checksum_ref, arr)
+    for name, shifted in b1_runs:
+        arr = b1_cases[name]
+        got, err = held(adler_frame_checksum, adler_frame_checksum_ref, arr,
+                        shifted)
+        name += " misaligned" if shifted else ""
         emit("b1_vs_plain", case=name, max_abs_err=err)
         check(err == 0, f"B1 differs from its plain version on {name}")
         b1_err = max(b1_err, err)
@@ -163,40 +222,61 @@ def main():
 
     # 4. B2 against its plain version
     b2_err = 0
-    for n in (130048, 261120, 523264):
-        for kind, arr in (("random", rng.integers(0, 2**32, n, dtype=np.uint32)),
-                          ("ones", np.full(n, 0xFFFFFFFF, np.uint32))):
-            _, err = held(integrity_word, integrity_word_ref, arr)
-            emit("b2_vs_plain", case=f"{kind}({n})", max_abs_err=err)
-            check(err == 0, f"B2 differs from its plain version on {kind}({n})")
-            b2_err = max(b2_err, err)
+    b2_runs = [(kind, n, False) for n in (130048, 261120, 523264)
+               for kind in ("random", "ones")]
+    b2_runs += [("random", 261121, False), ("random", 261120, True),
+                ("random", 523264, True), ("random", 3, True)]
+    for kind, n, shifted in b2_runs:
+        arr = (rng.integers(0, 2**32, n, dtype=np.uint32) if kind == "random"
+               else np.full(n, 0xFFFFFFFF, np.uint32))
+        _, err = held(integrity_word, integrity_word_ref, arr, shifted)
+        case = f"{kind}({n})" + (" misaligned" if shifted else "")
+        emit("b2_vs_plain", case=case, max_abs_err=err)
+        check(err == 0, f"B2 differs from its plain version on {case}")
+        b2_err = max(b2_err, err)
 
-    # 5. times at the main path's shapes
+    # 5. times: the main path's shapes, a few long B1 rows, the launch
+    # floor, and B1 on an input held in L2
     timings = {}
-    for shape, iters, plain_iters in (((4096, 1024), 50, 10),
-                                      ((256, 262144), 10, 2)):
-        arr = b1_cases[f"random({shape[0]},{shape[1]})"]
+
+    def timed(name, fn, ref, arr, iters, plain_iters, out_bytes, ops):
         xs = [words_from_numpy(arr, dev)
               for _ in range(copies_for(arr.nbytes))]
-        ms = graph_ms(adler_frame_checksum, xs, iters)
-        plain_ms = graph_ms(adler_frame_checksum_ref, xs[:1], plain_iters)
-        b_ms, b_by = bound(arr.nbytes + 4 * shape[0], 8 * arr.size)
-        timings[("adler_frame_checksum", shape)] = (ms, plain_ms, b_ms, b_by)
-        emit("time", kernel="adler_frame_checksum", shape=list(shape),
-             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        ms = graph_ms(fn, xs, iters)
+        plain_ms = graph_ms(ref, xs[:1], plain_iters)
+        b_ms, b_by = bound(arr.nbytes + out_bytes, ops)
+        timings[(name, arr.shape)] = (ms, plain_ms, b_ms, b_by)
+        emit("time", kernel=name, shape=list(arr.shape), ms=ms,
+             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
              gbps=arr.nbytes / ms / 1e6, share_of_bound=b_ms / ms)
-        del xs
-    n = 261120
-    arr = rng.integers(0, 2**32, n, dtype=np.uint32)
-    xs = [words_from_numpy(arr, dev) for _ in range(copies_for(arr.nbytes))]
-    ms = graph_ms(integrity_word, xs, 200)
-    plain_ms = graph_ms(integrity_word_ref, xs[:1], 20)
-    b_ms, b_by = bound(arr.nbytes + 4, 4 * n)
-    timings[("integrity_word", (n,))] = (ms, plain_ms, b_ms, b_by)
-    emit("time", kernel="integrity_word", shape=[n], ms=ms,
-         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-         gbps=arr.nbytes / ms / 1e6, share_of_bound=b_ms / ms)
-    del xs
+
+    for shape, iters, plain_iters in (((8, 1024), 200, 20),
+                                      ((4096, 1024), 50, 10),
+                                      ((32, 262144), 20, 4),
+                                      ((256, 262144), 10, 2)):
+        timed("adler_frame_checksum", adler_frame_checksum,
+              adler_frame_checksum_ref, b1_cases[f"random({shape[0]},{shape[1]})"],
+              iters, plain_iters, 4 * shape[0], 8 * shape[0] * shape[1])
+    for n in (130048, 261120, 523264):
+        timed("integrity_word", integrity_word, integrity_word_ref,
+              rng.integers(0, 2**32, n, dtype=np.uint32), 200, 20, 4, 4 * n)
+    torch.cuda.empty_cache()
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    floor_ms = graph_ms(lambda t: t.zero_(), [one], 1000)
+    emit("launch_floor", what="one-element zero_() per graph node",
+         ms=floor_ms)
+    # B2 on no words still launches its cluster: its fixed cost.
+    empty = words_from_numpy(np.zeros(0, np.uint32), dev)
+    emit("fixed_cost", kernel="integrity_word", shape=[0],
+         ms=graph_ms(integrity_word, [empty], 1000), launch_floor_ms=floor_ms)
+    # 32 MiB, one copy replayed, stays in the 50 MB L2: the kernel's time
+    # without HBM, beside its time cycled over 128 MiB above.
+    x = words_from_numpy(b1_cases["random(32,262144)"], dev)
+    l2_ms = graph_ms(adler_frame_checksum, [x], 50)
+    emit("l2_resident", kernel="adler_frame_checksum", shape=[32, 262144],
+         ms=l2_ms, hbm_ms=timings[("adler_frame_checksum", (32, 262144))][0],
+         hbm_bound_ms=bound(x.numel() * 4, 0)[0])
+    del x
     torch.cuda.empty_cache()
 
     # 6. the main path, counters from 0
@@ -249,7 +329,11 @@ def main():
             "launches": launches[name], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             # No single PyTorch call computes either function.
-            "library_ms": None})
+            "library_ms": None,
+            "shapes": [{"shape": list(k[1]), "ms": v[0], "plain_ms": v[1],
+                        "bound_ms": v[2], "bound_by": v[3]}
+                       for k, v in timings.items() if k[0] == name],
+            "launch_floor_ms": floor_ms})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
