@@ -24,8 +24,19 @@ Phases, each printing one JSON line:
      (4096, 1024) and (256, 262144), and the device path over a 256 MiB
      payload (ring depth 4, 1020 KiB chunks); every output is checked;
   7. launch counters: each kernel launched at least once on the main path.
-Then the kernels line, the card line, and last the contract line
-{"ok": true, "device": {...}}.
+  8. mesh: the five mesh steps (parallel echo, partition, all-reduce,
+     all-gather, all-to-all) in a world of 8 spawned ranks on the one
+     card, gloo backend (CUDA tensors; the collectives cross gloo's host
+     transport), at the framework's widths: one 1 MiB request a rank,
+     32 partitions of 1 MiB a rank for the partition step (B1 in every
+     rank); every output checked, B1 held bit-equal to its plain version
+     in every rank; median ms per call (host clock, synchronized);
+  9. dryrun_multichip(8, backend="gloo") on the card, framed round trips
+     included, its outputs checked;
+ 10. the five steps in a one-rank NCCL world on the card.
+Then the kernels line (B1's gains the mesh launches, summed over the
+ranks), the card line, and last the contract line {"ok": true,
+"device": {...}}.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repo. Any mismatch or exception exits non-zero.
@@ -122,6 +133,88 @@ def sass_counts(obj):
     return counts
 
 
+# The mesh phases: 1 MiB of words a row, (step, rows a rank).
+MESH_WORDS = 262144
+MESH_STEPS = (("parallel_echo", 1), ("partition", 32), ("allreduce", 1),
+              ("allgather", 1), ("alltoall", 1))
+MESH_REPS = 5
+MESH_CALLS = {
+    "parallel_echo": {"all_gather_into_tensor": 1, "reduce_scatter_tensor": 1},
+    "partition": {"all_reduce": 1}, "allreduce": {"all_reduce": 1},
+    "allgather": {"all_gather_into_tensor": 1},
+    "alltoall": {"all_to_all_single": 1},
+}
+
+
+def mesh_expected(step, full, n):
+    """numpy answer of a collective step, one row a rank: `full` is the
+    ranks' inputs stacked in rank order."""
+    if step == "parallel_echo":
+        return full
+    if step == "allreduce":
+        return np.tile(full.sum(axis=0, dtype=np.uint32), (n, 1))
+    if step == "allgather":
+        return np.tile(full.reshape(-1), (n, 1))
+    return full.reshape(n, n, -1).transpose(1, 0, 2).reshape(n, -1)
+
+
+def mesh_world(phase, n, backend, seed):
+    """Runs MESH_STEPS in an n-rank world on the card and checks every
+    output; emits one line a step and returns B1's launches summed over
+    the ranks."""
+    from brpc_tpu_torch.parallel import world
+    from brpc_tpu_torch.parallel.collective_echo import shard
+
+    cases = [{"name": step, "step": step,
+              "data": ("random", seed + i, rows, MESH_WORDS),
+              "keep": step != "partition"}
+             for i, (step, rows) in enumerate(MESH_STEPS)]
+    t0 = time.monotonic()
+    results = world.run(n, "brpc_tpu_torch.parallel.collective_echo:run_cases",
+                        (cases, MESH_REPS), backend=backend, device="cuda")
+    wall_s = time.monotonic() - t0
+    b1 = 0
+    for i, case in enumerate(cases):
+        step, per_rank = case["step"], [r[i] for r in results]
+        for r in per_rank:
+            check(r["is_cuda"] and r["device"].startswith("cuda"),
+                  f"{phase} {step}: a rank ran on {r['device']}")
+            check(r["calls"] == MESH_CALLS[step],
+                  f"{phase} {step}: collectives per call {r['calls']}")
+        if step == "partition":
+            checks = np.concatenate([r["checksums"] for r in per_rank])
+            total = int(checks.astype(np.int64).sum()) & 0xFFFFFFFF
+            for r in per_rank:
+                check(r["b1_vs_plain"] == 0 and r["echo_is_input"],
+                      f"{phase}: B1 differs from its plain version in a rank")
+                check(int(r["total"]) == total,
+                      f"{phase}: total is not the wrapping sum of checksums")
+                check(r["b1_launches"] > 0, f"{phase}: a rank never launched B1")
+        else:
+            full = np.concatenate([shard(case["data"], r, n) for r in range(n)])
+            want = mesh_expected(step, full, n)
+            for r, res in enumerate(per_rank):
+                check(np.array_equal(res["outputs"][0][0], want[r]),
+                      f"{phase} {step}: rank {r} differs from numpy")
+        b1 += sum(r["b1_launches"] for r in per_rank)
+        emit(phase, step=step, backend=backend, world_size=n,
+             shape_per_rank=[case["data"][2], MESH_WORDS],
+             ms_per_call=max(r["ms"] for r in per_rank),
+             ms_per_call_by_rank=[r["ms"] for r in per_rank],
+             timing=(f"host clock, median of {MESH_REPS} calls a rank, each "
+                     "after a barrier and ended by torch.cuda.synchronize; "
+                     "the slowest rank's median"
+                     + (f"; {n} ranks share one card through gloo's host "
+                        "transport" if backend == "gloo" else "")),
+             calls_per_call=MESH_CALLS[step],
+             # collective_echo passes CUDA tensors to every collective.
+             host_staged=[],
+             ranks=[{"device": r["device"], "cuda_tensors": r["is_cuda"],
+                     "b1_launches": r["b1_launches"]} for r in per_rank],
+             world_wall_s=wall_s, ok=True)
+    return b1
+
+
 def copies_for(nbytes):
     """Enough distinct copies of an input to span 128 MiB (> the 50 MB L2)."""
     return max(1, -(-(128 << 20) // nbytes))
@@ -134,7 +227,8 @@ def main():
     from brpc_tpu_torch import native
     from brpc_tpu_torch.convert import words_from_numpy, words_to_numpy
     from brpc_tpu_torch.device_path import run as device_path_run
-    from brpc_tpu_torch.graft_entry import entry
+    from brpc_tpu_torch.graft_entry import (dryrun_multichip, dryrun_payloads,
+                                            entry)
     from brpc_tpu_torch.kernels import _build
     from brpc_tpu_torch.kernels.checksum import (adler_frame_checksum,
                                                  adler_frame_checksum_ref)
@@ -314,6 +408,31 @@ def main():
     for name, count in launches.items():
         check(count > 0, f"{name} was never launched on the main path")
 
+    # 8. mesh: 8 ranks on the one card over gloo
+    torch.cuda.empty_cache()
+    mesh_launches = {"mesh": mesh_world("mesh", 8, "gloo", SEED)}
+
+    # 9. dryrun_multichip over the same kind of world
+    t0 = time.monotonic()
+    dry = dryrun_multichip(8, backend="gloo")
+    dry_s = time.monotonic() - t0
+    req = dryrun_payloads(8)
+    want = words_to_numpy(adler_frame_checksum_ref(torch.from_numpy(req)))
+    check(np.array_equal(dry["outputs"], req), "dryrun: echo is not exact")
+    check(np.array_equal(dry["checksums"], want), "dryrun: partition checksums")
+    check(int(dry["total"]) == int(want.astype(np.int64).sum()) & 0xFFFFFFFF,
+          "dryrun: total")
+    check(all(dry["cuda_tensors"]) and min(dry["b1_launches"]) > 0,
+          "dryrun: a rank ran without CUDA tensors or without B1")
+    mesh_launches["dryrun"] = sum(dry["b1_launches"])
+    emit("dryrun_multichip", n=8, backend=dry["backend"],
+         devices=dry["devices"], cuda_tensors=dry["cuda_tensors"],
+         b1_launches=dry["b1_launches"], total=f"{int(dry['total']):#010x}",
+         framed_round_trips=16, seconds=dry_s, ok=True)
+
+    # 10. the NCCL path: one rank on the card
+    mesh_launches["nccl"] = mesh_world("mesh_nccl", 1, "nccl", SEED + 100)
+
     entries = [
         ("adler_frame_checksum", "brpc_tpu_torch/csrc/adler_checksum.cu",
          "brpc_tpu/parallel/collective_echo.py:23", (256, 262144), b1_err),
@@ -334,6 +453,8 @@ def main():
                         "bound_ms": v[2], "bound_by": v[3]}
                        for k, v in timings.items() if k[0] == name],
             "launch_floor_ms": floor_ms})
+    kernels[0]["mesh_launches"] = sum(mesh_launches.values())
+    kernels[0]["mesh_launches_by_phase"] = mesh_launches
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
