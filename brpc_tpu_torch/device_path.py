@@ -245,7 +245,8 @@ def run(payload_mb: int = 4, reps: int = 5, ring_depth: int = 4,
     keys. device=None means CUDA. If `diag` is a dict it receives the
     pipelined ring's staging facts: host_registered_spans (page spans
     registered with cudaHostRegister) and slot_pinned (is_pinned() held
-    for every slot view)."""
+    for every slot view); and the pass's shape: chunks, and
+    payload_bytes, the bytes a pass moves each way."""
     dev = resolve_device(device)
     chunk_bytes = (chunk_kb << 10) & ~4095
     n_chunks = max(1, (payload_mb << 20) // chunk_bytes)
@@ -295,6 +296,8 @@ def run(payload_mb: int = 4, reps: int = 5, ring_depth: int = 4,
         if diag is not None:
             diag["host_registered_spans"] = len(pipe.registered_spans)
             diag["slot_pinned"] = pipe.slot_pinned
+            diag["chunks"] = n_chunks
+            diag["payload_bytes"] = payload_bytes
     finally:
         if pipe is not None:
             pipe.close()

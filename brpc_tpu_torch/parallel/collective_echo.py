@@ -25,9 +25,12 @@ see torch.uint32. CUDA tensors go to the collectives as they are, also
 on gloo: on torch 2.11 gloo takes them for all four collectives used
 here (all_gather_into_tensor, reduce_scatter_tensor, all_to_all_single,
 all_reduce), so no operand is staged through the host by this module.
+gloo itself copies each CUDA operand to host memory and each result
+back: the bytes that `nbytes` counts then cross the card's host link.
 """
 from __future__ import annotations
 
+import contextlib
 import statistics
 import time
 import warnings
@@ -41,9 +44,15 @@ from brpc_tpu_torch.convert import (int64_to_uint32, uint32_to_int64,
                                     words_from_numpy)
 from brpc_tpu_torch.kernels.checksum import (adler_frame_checksum,
                                              adler_frame_checksum_ref)
+from brpc_tpu_torch.profiling import profiler, trace_events, trace_summary
 
-# Collective calls made by this process, by name.
+# Collective calls made by this process, by name, and the bytes of the
+# operands handed to them: "in" the inputs they read, "out" the outputs
+# they write (all_reduce's one tensor counts both ways).
 calls: Counter = Counter()
+nbytes: Counter = Counter()
+# The host range that run_cases labels around each profiled call.
+STEP_CALL = "step_call"
 
 
 def _adler_frame_checksum(words: torch.Tensor) -> torch.Tensor:
@@ -90,6 +99,8 @@ def _collective(name: str, group, out: torch.Tensor, *inputs: torch.Tensor,
                                 message=r".*is deprecated")
         getattr(dist, name)(*views, group=group, **kw)
     calls[name] += 1
+    nbytes["in"] += sum(t.nbytes for t in (inputs or (out,)))
+    nbytes["out"] += out.nbytes
 
 
 def make_parallel_echo_step(group=None):
@@ -226,12 +237,16 @@ def run_cases(rank, cases: list, reps: int = 0) -> list:
 
     Each case is a dict: "name", "step" (a key of STEPS), "data" (see
     `shard`), optionally "ranks" (the members of a subgroup the step
-    runs over; default the world) and "keep" (return the outputs;
-    default True). A member calls the step once, then `reps` timed
+    runs over; default the world), "keep" (return the outputs; default
+    True) and "profile" (run the timed calls under torch.profiler;
+    default False). A member calls the step once, then `reps` timed
     calls, each after a barrier and ended by a synchronize. Returns,
     per case: the outputs, the median ms of the timed calls, the
-    collective calls per step call, B1's launches, and for the partition step B1's largest difference
-    from its plain version on the rank's shard."""
+    collective calls and operand bytes (`nbytes`) per step call, B1's
+    launches, for the partition step B1's largest difference from its
+    plain version on the rank's shard, and for a profiled case what
+    `trace_summary` saw in the timed calls plus the median host ms of
+    the barrier, of the step's own call and of the synchronize."""
     results = []
     for case in cases:
         members = case.get("ranks", list(range(rank.size)))
@@ -244,26 +259,41 @@ def run_cases(rank, cases: list, reps: int = 0) -> list:
         local = words_from_numpy(shard(case["data"], member, len(members)),
                                  rank.device)
         step = STEPS[case["step"]](group)
-        calls0 = Counter(calls)
+        calls0, nbytes0 = Counter(calls), Counter(nbytes)
         launches0 = adler_frame_checksum.launches
         out = step(local)
-        times = []
-        for _ in range(reps):
-            _sync(local)
-            dist.barrier(group)
-            t0 = time.perf_counter()
-            step(local)
-            _sync(local)
-            times.append((time.perf_counter() - t0) * 1e3)
+        profile = case.get("profile", False)
+        window = ((lambda: torch.profiler.record_function(STEP_CALL))
+                  if profile else contextlib.nullcontext)
+        times, host = [], []
+        with (profiler(local) if profile else contextlib.nullcontext()) as prof:
+            for _ in range(reps):
+                _sync(local)
+                tb = time.perf_counter()
+                dist.barrier(group)
+                t0 = time.perf_counter()
+                with window():
+                    step(local)
+                    t1 = time.perf_counter()
+                    _sync(local)
+                t2 = time.perf_counter()
+                times.append((t2 - t0) * 1e3)
+                host.append((t0 - tb, t1 - t0, t2 - t1))
         outputs = out if isinstance(out, tuple) else (out,)
         res = {
             "name": case["name"], "member": True, "device": str(local.device),
             "is_cuda": local.is_cuda, "backend": rank.backend,
             "ms": statistics.median(times) if times else None,
             "calls": {op: c / (1 + reps) for op, c in (calls - calls0).items()},
+            "bytes": {d: c / (1 + reps) for d, c in (nbytes - nbytes0).items()},
             "b1_launches": adler_frame_checksum.launches - launches0,
             "outputs": outputs if case.get("keep", True) else None,
         }
+        if profile:
+            res["profile"] = trace_summary(trace_events(prof), STEP_CALL, reps)
+            res["profile"]["host_ms"] = {
+                part: statistics.median(h[i] for h in host) * 1e3
+                for i, part in enumerate(("barrier", "step", "synchronize"))}
         if case["step"] == "partition":
             check, echoed, total = outputs
             res["echo_is_input"] = echoed is local

@@ -19,7 +19,7 @@ from brpc_tpu_torch.kernels.checksum import adler_frame_checksum_ref
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(str(p.relative_to(REPO))
                     for p in (REPO / "brpc_tpu_torch").rglob("*.py"))
-PORT_FILES.append("chip_smoke.py")
+PORT_FILES += ["chip_smoke.py", "kernel_times.py"]
 
 
 def test_entry_matches_jax_entry(monkeypatch):

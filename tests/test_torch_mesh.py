@@ -19,13 +19,16 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from brpc_tpu_torch import native
 from brpc_tpu_torch.convert import words_from_numpy
 from brpc_tpu_torch.graft_entry import dryrun_multichip, dryrun_payloads
 from brpc_tpu_torch.kernels import _build
 from brpc_tpu_torch.kernels.checksum import adler_frame_checksum_ref
 from brpc_tpu_torch.parallel import world
-from brpc_tpu_torch.parallel.collective_echo import make_parallel_echo_step
+from brpc_tpu_torch.parallel.collective_echo import (STEP_CALL,
+                                                     make_parallel_echo_step)
+from brpc_tpu_torch.profiling import trace_summary
 
 RUN_CASES = "brpc_tpu_torch.parallel.collective_echo:run_cases"
 N = 8
@@ -64,6 +67,16 @@ CALLS = {
 ALLREDUCE4_RANKS = [0, 1, 2, 3]
 ALLREDUCE4_KEYS = [40001, 40002, 40003, 40004]
 
+# The other four steps in the same 4-rank subgroup.
+SUB4 = {
+    "echo_4": ("parallel_echo", _arange(4, 128)),
+    "partition_4": ("partition", _arange(8, 96) * GOLDEN),
+    "allgather_4": ("allgather", _arange(4, 32)),
+    "alltoall_4": ("alltoall", _arange(4, 4 * 16)),
+}
+# A case whose timed call runs under torch.profiler.
+PROFILED = "allreduce_profiled"
+
 
 def _fill_deterministic(seq, key, n):
     """numpy twin of CollectiveEngine::FillDeterministic, copied from
@@ -84,6 +97,10 @@ def _world_cases():
              for name, (step, data) in CASES.items()]
     cases.append({"name": "allreduce4_64k", "step": "allreduce",
                   "data": _allreduce4_rows(), "ranks": ALLREDUCE4_RANKS})
+    cases += [{"name": name, "step": step, "data": data,
+               "ranks": ALLREDUCE4_RANKS} for name, (step, data) in SUB4.items()]
+    cases.append({"name": PROFILED, "step": "allreduce",
+                  "data": CASES["allreduce"][1], "profile": True})
     return cases
 
 
@@ -178,15 +195,96 @@ def test_allreduce_4_ranks_64k_matches_jax(ranks):
         port, np.tile(rows.sum(axis=0, dtype=np.uint32), (4, 1)))
 
 
-@pytest.mark.parametrize("name", sorted(CASES) + ["allreduce4_64k"])
+@pytest.mark.parametrize("name", sorted(SUB4))
+def test_step_in_a_4_rank_subgroup_matches_jax(ranks, name):
+    step, data = SUB4[name]
+    n = len(ALLREDUCE4_RANKS)
+    port = _joined(ranks[name])
+    jax_out = _jax_step(step, data, n=n)
+    if step == "partition":
+        np.testing.assert_array_equal(port[0], jax_out[0])
+        np.testing.assert_array_equal(port[1], jax_out[1])
+        assert all(t == jax_out[2] for t in port[2])
+    else:
+        np.testing.assert_array_equal(port[0], jax_out[0])
+    for got, want in zip(port, _numpy_answer(step, data, n)):
+        np.testing.assert_array_equal(got, want)
+
+
+def _case(name):
+    """(step, global input, members) of a world case."""
+    if name in CASES:
+        return (*CASES[name], N)
+    if name in SUB4:
+        return (*SUB4[name], len(ALLREDUCE4_RANKS))
+    if name == PROFILED:
+        return (*CASES["allreduce"], N)
+    return "allreduce", _allreduce4_rows(), len(ALLREDUCE4_RANKS)
+
+
+WORLD_CASES = sorted(CASES) + ["allreduce4_64k", PROFILED] + sorted(SUB4)
+
+
+@pytest.mark.parametrize("name", WORLD_CASES)
 def test_step_issues_its_collectives_once_per_call(ranks, name):
     """The twin of test_partition_step_compiles_with_collective: the
     partition step's merge is exactly one all_reduce a call, and every
     other step issues its own collectives once a call."""
-    step = CASES[name][0] if name in CASES else "allreduce"
+    step = _case(name)[0]
     for r in ranks[name]:
         if r["member"]:
             assert r["calls"] == CALLS[step], (r["name"], r["calls"])
+
+
+@pytest.mark.parametrize("name", WORLD_CASES)
+def test_collective_bytes_match_the_model(ranks, name):
+    """The operand bytes each member hands its collectives a call equal
+    chip_smoke's byte model for the step at that many ranks."""
+    step, data, n = _case(name)
+    want = chip_smoke.collective_bytes(step, n, data.shape[0] // n,
+                                       data.shape[1])
+    members = [r for r in ranks[name] if r["member"]]
+    assert len(members) == n
+    for r in members:
+        assert r["bytes"] == want, (r["name"], r["bytes"], want)
+
+
+def test_profiled_case_splits_the_host_time(ranks):
+    """On the CPU the profiled calls have no device activity; the host
+    split and the profiled windows are there, and the outputs still
+    match the unprofiled case."""
+    for r, plain in zip(ranks[PROFILED], ranks["allreduce"]):
+        p = r["profile"]
+        assert set(p["host_ms"]) == {"barrier", "step", "synchronize"}
+        assert all(v >= 0 for v in p["host_ms"].values())
+        assert p["window_ms"] > 0
+        assert p["device_ops"] == [] and p["busy_share"] is None
+        assert len(p["idle_gaps"]) == 1  # one timed call, idle throughout
+        np.testing.assert_array_equal(r["outputs"][0], plain["outputs"][0])
+        assert "profile" not in plain
+
+
+def test_trace_summary_matches_device_ops_to_their_launch():
+    """The device's clock in a trace may run behind the host's: an op
+    counts for the window its launch lies in, and the device timeline is
+    moved forward until no op starts before its launch."""
+    def x(cat, name, ts, dur, corr=None):
+        return {"cat": cat, "name": name, "ts": ts, "dur": dur,
+                **({"args": {"correlation": corr}} if corr else {})}
+
+    events = [x("user_annotation", STEP_CALL, 1000.0, 1000.0),
+              x("cuda_runtime", "cudaLaunchKernel", 1010.0, 5.0, 7),
+              x("kernel", "inside", 620.0, 100.0, 7),
+              x("cuda_runtime", "cudaLaunchKernel", 3010.0, 5.0, 8),
+              x("kernel", "after", 2620.0, 20.0, 8)]
+    s = trace_summary(events, STEP_CALL, 1)
+    assert s["clock_shift_ms"] == pytest.approx(0.39)
+    assert s["device_ops_per"] == 1
+    assert s["device_ops"] == [{"name": "inside", "count": 1.0,
+                                "ms": pytest.approx(0.1)}]
+    assert s["busy_share"] == pytest.approx(0.1)
+    assert s["idle_gaps"][0]["ms"] == pytest.approx(0.89)
+    assert s["idle_gaps"][0]["at_ms"] == pytest.approx(0.11)
 
 
 def test_ranks_ran_on_the_cpu_with_gloo(ranks):
@@ -297,6 +395,8 @@ def test_mesh_on_card():
                 assert r["is_cuda"] and r["device"] == "cuda:0"
                 assert r["backend"] == backend
                 assert r["calls"] == CALLS[step]
+                assert r["bytes"] == chip_smoke.collective_bytes(
+                    step, n, data.shape[0] // n, data.shape[1])
             want = _numpy_answer(step, data, n)
             got = _joined(per_rank)
             for g, w in zip(got, want):
