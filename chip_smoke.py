@@ -25,7 +25,8 @@ Phases, each printing one JSON line:
      bench_torch (BENCHMARK.json; one bench_cell line each, with its
      checks against bench_torch.reference and its metrics): the echo_step
      cells, and the device path over a 256 MiB payload (ring
-     depth 4, 1020 KiB chunks), which measures:
+     depth 4, 1020 KiB chunks; the device_path line gives the count of
+     worker threads that run its host passes), which measures:
      host_link: the card's host link on pinned memory, 256 MiB H2D
      alone, D2H alone and both at once on two streams, and the same at
      the device path's chunk size (1020 KiB, back-to-back copies from
@@ -264,7 +265,7 @@ def main():
         print("chip_smoke: no CUDA device found", file=sys.stderr)
         return 2
     from bench_torch import cells
-    from brpc_tpu_torch import native
+    from brpc_tpu_torch import device_path, native
     from brpc_tpu_torch.convert import words_from_numpy, words_to_numpy
     from brpc_tpu_torch.graft_entry import (dryrun_multichip, dryrun_payloads,
                                             entry)
@@ -453,7 +454,8 @@ def main():
     link = dp["host_link"]["link_256mib"]
     emit("host_link", nvidia_smi=smi, **dp["host_link"], ok=True)
     record, diag = dp["record"], dp["diag"]
-    emit("device_path", record=record, **diag)
+    emit("device_path", record=record,
+         workers=device_path._worker_count(cfg["ring_depth"]), **diag)
     check(record["device_path_ok"], "device_path_ok is false")
     check(diag["slot_pinned"], "ring slots were not seen as pinned")
     check((diag["chunks"], diag["payload_bytes"])

@@ -94,9 +94,10 @@ def test_crc32c_reference_rfc3720_vectors():
 
 
 @pytest.mark.parametrize("case", list(CRC_CASES))
-def test_crc32c_reference_matches_the_frameworks(case):
+def test_crc32c_reference_matches_the_frameworks(case, cpp_build):
     """The reference against the JAX package's bridge to the framework's
-    crc32c, the one its device path frames and verifies with."""
+    crc32c, the one its device path frames and verifies with (it loads
+    build/libtpurpc.so, so the build comes first)."""
     from brpc_tpu import native
     rows = CRC_CASES[case]
     assert reference.crc32c_rows(rows).tolist() == [native.crc32c(r)
@@ -278,89 +279,27 @@ device_path.run = run
 measure.device_path_split = split
 
 if fault == "pooled verify":
-    import queue, threading, time
-    from collections import deque
-    from concurrent.futures import Future
+    import time
 
-    # Each crc32c made on a pool worker holds HOLD_S in a sleep, which
-    # drops the GIL, so the workers' timed calls overlap in every pass.
+    # In the traced pass each crc32c holds HOLD_S in a sleep, which
+    # drops the GIL; only the pipeline's workers call it, three of them,
+    # so their timed calls overlap in every pass.
     HOLD_S = 0.01
-    held = threading.local()
     crc32c = native.crc32c
 
     def held_crc32c(data, init=0):
-        if getattr(held, "on", False):
-            time.sleep(HOLD_S)
+        time.sleep(HOLD_S)
         return crc32c(data, init)
 
-    native.crc32c = held_crc32c
+    def split(*args, _split=split):
+        native.crc32c = held_crc32c
+        try:
+            return _split(*args)
+        finally:
+            native.crc32c = crc32c
 
-    # The ring path with the verify crc32c of each retired chunk on one
-    # of WORKERS threads. A slot waits in verification instead of in
-    # flight (pipeline depth 1), and is completed, its crc32c appended,
-    # in chunk order. CPU tensors only.
-    class PooledVerify(device_path._ChunkPipeline):
-        WORKERS = 3
-
-        def __init__(self, ring, chunks, dev, depth, copy_mode):
-            super().__init__(ring, chunks, dev, depth if copy_mode else 1,
-                             copy_mode)
-            self.jobs, self.verifying, self.workers = queue.Queue(), deque(), []
-            if not copy_mode:
-                self.workers = [threading.Thread(target=self._work, daemon=True)
-                                for _ in range(self.WORKERS)]
-                for w in self.workers:
-                    w.start()
-
-        def _work(self):
-            held.on = True
-            while (job := self.jobs.get()) is not None:
-                back, done = job
-                try:
-                    done.set_result(native.crc32c(back))
-                except Exception as e:
-                    done.set_exception(e)
-
-        def _launch(self, k):
-            while len(self.verifying) >= self.ring.depth:
-                self._finish()
-            return super()._launch(k)
-
-        def _retire(self, item):
-            if self.copy_mode:
-                return super()._retire(item)
-            _, slot, _, _, _, y, chk = item
-            back, done = y.numpy(), Future()
-            self.jobs.put((back, done))
-            self.verifying.append((slot, back, int(chk), done))
-
-        def _finish(self):
-            slot, back, check, done = self.verifying.popleft()
-            crc = done.result(timeout=60)
-            self.ok = self.ok and crc == self.crcs[slot]
-            self.returned_crcs.append(crc)
-            self.last_returned = back
-            self.dev_checks.append(check)
-            self.ring.complete(slot)
-
-        def run(self, reps):
-            t0 = time.monotonic()
-            super().run(reps)
-            while self.verifying:
-                self._finish()
-            return time.monotonic() - t0
-
-        def close(self):
-            for _ in self.workers:
-                self.jobs.put(None)
-            for w in self.workers:
-                w.join(timeout=60)
-            if any(w.is_alive() for w in self.workers):
-                raise RuntimeError("a verify worker did not stop")
-            self.workers = []
-            super().close()
-
-    device_path._ChunkPipeline = PooledVerify
+    measure.device_path_split = split
+    device_path._worker_count = lambda depth: 3
 out = cells.run_cell("device_path-256MiB-1020KiB-d4", 9, torch.device("cpu"))
 print(json.dumps({"correct": out["correct"], "checks": out["checks"],
                   "metrics": {k: v for k, (v, _) in out["metrics"].items()},
@@ -379,7 +318,8 @@ DEVICE_PATH_FAULTS = {
     # longer match the reference's.
     "verify crc32c constant": ["returned_crc32c", "traced_pass_ok"],
     "traced crc32c wrong": ["traced_pass_ok"],
-    # Not a fault: the verify crc32c on three worker threads.
+    # Not a fault: the traced pass's verify crc32c held 10 ms on each of
+    # the pipeline's three workers.
     "pooled verify": [],
 }
 
@@ -387,13 +327,14 @@ DEVICE_PATH_FAULTS = {
 @pytest.mark.parametrize("fault", list(DEVICE_PATH_FAULTS))
 def test_device_path_cell_on_the_cpu(fault):
     """The device path cell at 4 MiB a pass on the CPU: correct as it
-    is, and with its verify crc32c on three worker threads; a corrupted
+    is, and with the verify crc32c held on three workers; a corrupted
     chunk word, crc32c or returned chunk of the timed run, a timed or
     traced run that is not ok, or a verify crc32c that does not compute
-    the crc32c makes it incorrect. As it is, one thread runs every
-    timed part and the host floor is the three passes' ms a chunk times
-    the chunks; with the worker threads their parts sum past the wall,
-    and the floor and "everything else" still keep to it."""
+    the crc32c makes it incorrect. The caller and the pipeline's
+    workers run the timed parts, so the host floor is at most the three
+    passes' ms a chunk times the chunks; with the held crc32c the parts
+    sum past the wall, and the floor and "everything else" still keep
+    to it."""
     proc = subprocess.run(
         [sys.executable, "-c", _DEVICE_PATH_SCRIPT,
          json.dumps(SMALL[DEVICE_PATH]), fault],
@@ -414,14 +355,15 @@ def test_device_path_cell_on_the_cpu(fault):
         assert sum(v for k, v in parts.items()
                    if k != "everything else" and v is not None) > timed_wall
     if fault == "none":
-        assert got["host_threads"] == 1
+        assert got["host_threads"] >= 2
         passes = split["host_passes"]["host_ms_per_chunk"]
         assert min(passes.values()) > 0
         assert split["host_floor_ms_at_host_pass_rates"] == pytest.approx(
             split["chunks"] * sum(passes.values()), rel=1e-9)
-        assert split["host_floor_ms"] == pytest.approx(
-            split["chunks"] * (parts["np.copyto"] + parts["native.frame_in_place"]
-                               + parts["native.crc32c"]), rel=1e-9)
+        # The busiest thread's share of the three passes' calls.
+        assert 0 < split["host_floor_ms"] <= split["chunks"] * (
+            parts["np.copyto"] + parts["native.frame_in_place"]
+            + parts["native.crc32c"]) * (1 + 1e-9)
         listed = {m["name"] for m in cells.workloads()[DEVICE_PATH]["metrics"]}
         assert listed - {"device_busy_share"} <= {
             k for k, v in got.items() if v is not None}
